@@ -1,12 +1,13 @@
-"""Benchmark harness: Groth16 prover device compute on the attached chip.
+"""Benchmark harness: Groth16 prover device compute on one GPU.
 
 Measures the device compute of one proof for a synthetic multiplier
-chain (BASELINE.md config 5 scaled by ZA_BENCH_LOG2N, default 2^13):
+chain (BASELINE.md config 5 scaled by ZA_BENCH_LOG2N, default 2^17):
 QAP h(x) via coset NTT + the four G1 MSMs + the G2 MSM, through the
-same TpuEngine the prover uses (signed-dense RNS MSM on TPU), plus a
-host witness-generation datapoint (interpreter vs compiled wtrace
-replay) so every stage of the north-star prove path (SURVEY.md
-section 3.2) has a number.
+same TpuEngine the prover uses (its backend profile picks the MSM and
+NTT), plus a host witness-generation datapoint (interpreter vs compiled
+wtrace replay) so every stage of the north-star prove path (SURVEY.md
+section 3.2) has a number.  Refuses to run without a GPU; the card's
+name and power limit go to stderr on a '#' line.
 
 Prints ONE JSON line:
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
@@ -129,15 +130,22 @@ def main():
 
         logging.basicConfig(level=logging.INFO, format="# %(message)s",
                             stream=sys.stderr)
-    # default 2^17: the mid-rung of the BASELINE ladder (13/17/20);
-    # LADDER_r04.json records all three
+    # default 2^17: the mid-rung of the BASELINE ladder (13/17/20)
     log2n = int(os.environ.get("ZA_BENCH_LOG2N", "17"))
     lanes = os.environ.get("ZA_BENCH_LANES")
     lanes = int(lanes) if lanes else None
 
+    import jax
+
     from za_tpu.curve import G1_GEN, G2_GEN, R, g1_mul, g2_mul
+    from za_tpu.engine.device import card_line, device_json, require_gpu
     from za_tpu.engine.engine import TpuEngine
     from za_tpu.groth16.domain import Domain
+
+    require_gpu()
+    print(f"# device: {json.dumps(device_json())} jax {jax.__version__}",
+          file=sys.stderr)
+    print(f"# card: {card_line()}", file=sys.stderr, flush=True)
 
     t0 = time.time()
     r1cs, z = build_r1cs(log2n)
@@ -187,7 +195,7 @@ def main():
 
     def stage(name, f):
         t = time.time()
-        r = f()
+        r = jax.block_until_ready(f())
         dt_ = time.time() - t
         stage_total[0] += dt_
         print(f"#   {name}: {dt_:.2f}s", file=sys.stderr, flush=True)
@@ -274,7 +282,7 @@ def main():
     print(f"# sat+prove pipeline {pipeline_s:.2f}s", file=sys.stderr,
           flush=True)
 
-    # end-to-end wall accounting (VERDICT r4 item 6): warm wall = one
+    # end-to-end wall accounting: warm wall = one
     # full repeat prove (witness replay + sat-fused device pipeline +
     # result d2h, all inside the measured calls); cold wall = first
     # prove of a fresh process (staging + compile-included first

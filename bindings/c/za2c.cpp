@@ -3,7 +3,7 @@
 // Mirrors the reference C binding surface (binding/c/native/src/lib.rs:
 // caller-provided buffers, error codes 0 / 1 / 2 / 100) as a thin C++
 // shim embedding CPython and calling za_tpu.groth16.helper. The heavy
-// compute still runs on the JAX/TPU engine inside the embedded
+// compute still runs on the JAX engine inside the embedded
 // interpreter.
 //
 // Build: see Makefile (g++ -shared -fPIC + libpython).

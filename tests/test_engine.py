@@ -1,4 +1,4 @@
-"""TPU engine tests (CPU backend, 8 virtual devices): limb field
+"""JAX engine tests (CPU backend, 8 virtual devices): limb field
 arithmetic, complete EC formulas, NTT, MSM, h(x) pipeline -- all
 cross-checked against the exact host implementations.
 
@@ -221,7 +221,7 @@ def test_msm_g2_matches_host():
 @pytest.mark.compiled
 @pytest.mark.slow
 def test_msm_grouped_matches_host():
-    """Window-parallel grouped MSM (the TPU prove path: all four G1
+    """Window-parallel grouped MSM (the grouped prove path: all four G1
     queries in one kernel) against the host golden model, including
     identity points, zero scalars, staged arrays, and limb scalars."""
     host = HostEngine()
@@ -256,7 +256,7 @@ def test_msm_grouped_g2_matches_host():
 @pytest.mark.compiled
 @pytest.mark.slow
 def test_msm_dense_matches_host():
-    """Scatter-free dense radix-4 MSM (the TPU default msm_style)."""
+    """Scatter-free dense radix-4 limb MSM."""
     host = HostEngine()
     n = 20
     pts = [g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(n)]

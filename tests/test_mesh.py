@@ -118,7 +118,7 @@ def test_sharded_tree_msm_matches_host(mesh):
     tabs = eng.stage_g1_affine([pts], chunk=8)
     assert tabs.chunks % 8 == 0
     ops = EC.make_g1_ops_rns()
-    fn = MESH.sharded_tree_msm_fn(mesh, ops, is_g2=False, fused=False)
+    fn = MESH.sharded_tree_msm_fn(mesh, ops, is_g2=False)
     sc = jnp.asarray(F.ints_to_limbs(scs))[:, None, :]
     sc = jnp.pad(sc, ((0, 0), (0, 0), (0, tabs.chunks * tabs.chunk_cols - n)))
     X, Y, Z = fn(tabs.tx, tabs.ty, tabs.ident, sc)
@@ -141,7 +141,7 @@ def test_sharded_tree_msm_g2_matches_host(mesh):
     eng = TpuEngine(msm_style="rns", mesh_devices=8)
     tabs = eng.stage_g2_affine([pts], chunk=8)
     ops = EC.make_g2_ops_rns()
-    fn = MESH.sharded_tree_msm_fn(mesh, ops, is_g2=True, fused=False)
+    fn = MESH.sharded_tree_msm_fn(mesh, ops, is_g2=True)
     sc = jnp.asarray(F.ints_to_limbs(scs))[:, None, :]
     sc = jnp.pad(sc, ((0, 0), (0, 0), (0, tabs.chunks * tabs.chunk_cols - n)))
     X, Y, Z = fn(tabs.tx, tabs.ty, tabs.ident, sc)
@@ -187,7 +187,7 @@ def test_sharded_tree_prove_end_to_end(mesh):
     params = generate_parameters(r1cs, tau=11, alpha=3, beta=5, gamma=7,
                                  delta=9)
     eng = TpuEngine(mesh_devices=8, lanes=8)
-    eng.msm_tree = True   # CPU mesh: tree defaults on only on TPU
+    eng.msm_tree = True   # the cpu profile keeps the tree off
     eng._tree_min = 512
     p_mesh = prove(params, r1cs, z, r=13, s=17, engine=eng)
     assert "g1abl" in params._staged_cache[1], "tree staging not used"

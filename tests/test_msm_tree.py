@@ -336,58 +336,10 @@ def test_tree_engine_prove_matches_host():
     params = generate_parameters(r1cs, tau=11, alpha=3, beta=5,
                                  gamma=7, delta=9)
     eng = TpuEngine(msm_style="rns", lanes=8)
-    eng.msm_tree = True   # opt-in (default off until Pallas-fused)
+    eng.msm_tree = True   # the cpu profile keeps the tree off
     eng._tree_min = 512   # small test circuit
     p1 = prove(params, r1cs, z, r=13, s=17, engine=eng)
     assert "g1abl" in params._staged_cache[1], "tree staging not used"
     p2 = prove(params, r1cs, z, r=13, s=17, engine=HostEngine())
     assert (p1.a, p1.b, p1.c) == (p2.a, p2.b, p2.c)
     assert verify_proof(params.vk, p1, z[1 : r1cs.num_inputs])
-
-
-@pytest.mark.compiled
-@pytest.mark.slow
-def test_fused_tree_matches_host_interpret():
-    """pallas_tree.msm_tree_fused in interpret mode (CPU): multi-chunk
-    scan + kernel levels + projective tail vs the host oracle.  Points
-    are pairwise DISTINCT (the tree-MSM contract; msm_tree docstring)."""
-    import za_tpu.engine.pallas_tree as PT
-
-    rng = random.Random(23)
-    n = 512
-    points = [g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(n)]
-    scalars = [rng.randrange(0, R) for _ in range(n)]
-    scalars[7] = 0
-    tabs = _stage_g1(points, chunk=256)  # C = 2: exercises the scan
-    ops = EC.make_g1_ops_rns()
-    X, Y, Z = PT.msm_tree_fused(tabs, _scalars_arr(scalars), ops,
-                                interpret=True)
-    got = EC.g1_point_from_rns(
-        np.asarray(X)[:, 0], np.asarray(Y)[:, 0], np.asarray(Z)[:, 0]
-    )
-    assert got == _host_msm_g1(points, scalars)
-
-
-@pytest.mark.compiled
-@pytest.mark.slow
-def test_fused_tree_g2_matches_host_interpret():
-    """pallas_tree.msm_tree_fused_g2 (flat-Fq2 kernels) in interpret
-    mode vs the host oracle."""
-    import za_tpu.engine.pallas_tree as PT
-
-    rng = random.Random(31)
-    n = 256
-    points = [g2_mul(G2_GEN, rng.randrange(1, R)) for _ in range(n)]
-    scalars = [rng.randrange(0, R) for _ in range(n)]
-    scalars[3] = 0
-    staged = EC.g2_points_to_rns(points)
-    staged = tuple(x[:, :, None, :] for x in staged)
-    tabs = MT.stage_affine_tables(staged, is_g2=True, n=n, chunk=n)
-    ops = EC.make_g2_ops_rns()
-    X, Y, Z = PT.msm_tree_fused_g2(tabs, _scalars_arr(scalars), ops,
-                                   interpret=True)
-    got = EC.g2_point_from_rns(
-        np.asarray(X)[:, :, 0], np.asarray(Y)[:, :, 0],
-        np.asarray(Z)[:, :, 0],
-    )
-    assert got == _host_msm_g2(points, scalars)

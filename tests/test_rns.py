@@ -286,7 +286,7 @@ def test_rns_ntt_matches_host():
 
 
 def test_rns_fourstep_matches_unrolled():
-    """The four-step RNS NTT core (TPU lane layout) computes the same
+    """The four-step RNS NTT core (the gpu profile's layout) computes the same
     transform as the 2D unrolled core, forward and inverse."""
     import za_tpu.engine.ntt_rns as NR
     from za_tpu.curve import R as FR_MOD
@@ -350,3 +350,22 @@ def test_fourstep_inter_table_device_build():
             [pow(h.omega, k2 * j1, R) for j1 in range(8)]
         )
         assert np.array_equal(got[:, k2, :], row), k2
+
+
+@pytest.mark.gpu
+def test_mont_mul_small_batches_on_card(gpu_backend):
+    """Op-by-op and jitted RNS multiplies at small batches match
+    XLA:CPU on the GPU (XLA:GPU's int8 dot got these wrong)."""
+    import jax
+
+    cpu = jax.devices("cpu")[0]
+    vals = [rng.randrange(512 * RR.modulus) for _ in range(64)]
+    a, b = RR.ints_to_rns(vals), RR.ints_to_rns(vals[::-1])
+    fn = jax.jit(lambda x, y: RNS.mont_mul_rns(x, y, RR))
+    for k in (1, 2, 3, 8, 64):
+        want = np.asarray(fn(jax.device_put(a[:, :k], cpu),
+                             jax.device_put(b[:, :k], cpu)))
+        assert np.array_equal(np.asarray(fn(a[:, :k], b[:, :k])), want)
+        eager = RNS.mont_mul_rns(jnp.asarray(a[:, :k]), jnp.asarray(b[:, :k]),
+                                 RR)
+        assert np.array_equal(np.asarray(eager), want)

@@ -2,7 +2,9 @@
 
 Mirrors the reference CLI surface and defaults (cli/src/main.rs:25-33,
 107-179); adds a ``verify`` subcommand (the reference exposes verify
-only through bindings) and ``--engine`` selection for the TPU backend.
+only through bindings) and ``--engine`` selection: ``tpu`` is the JAX
+engine on whatever accelerator JAX finds (an NVIDIA GPU; the CPU in
+tests)
 """
 
 from __future__ import annotations
@@ -43,9 +45,9 @@ def _engine(name: str, mesh: int = 0):
             raise SystemExit("--mesh requires --engine tpu")
         return None
     if name == "tpu":
-        # multi-host pods: ZA_DIST / JAX_COORDINATOR_ADDRESS connect
-        # the processes BEFORE any backend touch, so the mesh below
-        # spans all hosts (collectives ride ICI + DCN)
+        # multi-host: ZA_DIST / JAX_COORDINATOR_ADDRESS connect the
+        # processes BEFORE any backend touch, so the mesh below spans
+        # all hosts
         from .engine.dist import init_distributed
 
         init_distributed()
@@ -146,7 +148,7 @@ def cmd_verify(args):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        prog="za", description="za-tpu zk-SNARK toolchain"
+        prog="za", description="zk-SNARK toolchain"
     )
     parser.add_argument("-v", "--verbose", action="count", default=0)
     sub = parser.add_subparsers(dest="command", required=True)
@@ -164,8 +166,8 @@ def main(argv=None):
     p.add_argument("--engine", default="host", choices=["host", "tpu"])
     p.add_argument("--mesh", type=int, metavar="N",
                    default=_mesh_default(),
-                   help="shard MSM/NTT/matvec over N devices (TPU "
-                   "engine; default $ZA_MESH; multi-host pods need "
+                   help="shard MSM/NTT/matvec over N devices (JAX "
+                   "engine; default $ZA_MESH; multi-host runs need "
                    "jax.distributed.initialize before invocation)")
     p.set_defaults(fn=cmd_setup)
 
@@ -176,7 +178,7 @@ def main(argv=None):
     p.add_argument("--engine", default="host", choices=["host", "tpu"])
     p.add_argument("--mesh", type=int, metavar="N",
                    default=_mesh_default(),
-                   help="shard MSM/NTT/matvec over N devices (TPU "
+                   help="shard MSM/NTT/matvec over N devices (JAX "
                    "engine; default $ZA_MESH)")
     p.set_defaults(fn=cmd_prove)
 

@@ -34,8 +34,8 @@ class Constraints:
     def satisfies_with_signals(self, signals: Signals) -> None:
         """Evaluate every row's a,b,c over witness values; require
         a*b + c = 0. Raises ValueError with diagnostics on failure
-        (constraint.rs:29-67). This is the host reference checker the TPU
-        R1CS kernel (za_tpu.engine.r1cs) must replicate at scale."""
+        (constraint.rs:29-67). This is the host reference checker the
+        device R1CS matvec (TpuEngine.r1cs_satisfied) replicates."""
 
         def eval_lc(lc: LC) -> FS:
             acc = FS.zero()

@@ -1,17 +1,20 @@
-"""TPU compute engine: JAX/XLA/Pallas kernels for the Groth16 hot loops.
+"""Device compute engine: JAX/XLA kernels for the Groth16 hot loops.
 
-Replaces the reference's CPU bellman engine with TPU-native compute
-(BASELINE.json north star):
+Replaces the reference's CPU bellman engine with device compute on
+NVIDIA GPUs (tests on the CPU backend):
 
+  * profile.py -- the per-backend choices, resolved once
   * field.py -- BN254 Fr/Fq as 16x16-bit limb vectors, batched
-    Montgomery arithmetic on the VPU
+    Montgomery arithmetic
+  * rns.py   -- the residue-number-system field core (int8-dot base
+    extensions); msm_tree.py / ntt_rns.py build on it
   * ntt.py   -- radix-2 (coset) NTT over Fr for the QAP h(x)
   * ec.py    -- G1/G2 projective group law (complete RCB formulas,
     branchless)
   * msm.py   -- Pippenger multi-scalar multiplication with per-lane
     bucket accumulation (no scatter conflicts)
   * engine.py-- TpuEngine: the prover-facing facade
-  * mesh.py  -- multi-chip sharding (shard_map over a Mesh)
+  * mesh.py  -- multi-device sharding (shard_map over a Mesh)
 """
 
 def __getattr__(name):

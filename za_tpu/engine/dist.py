@@ -1,16 +1,20 @@
-"""Multi-host (DCN) wiring: jax.distributed initialization + global
-array construction.
+"""Multi-host wiring: jax.distributed initialization + global array
+construction.
 
 The single-host mesh path (engine/mesh.py) runs shard_map collectives
-over ICI on one process.  For N>=2 hosts (BASELINE configs; SURVEY.md
-section 2.4 "communication backend" row), every process must:
+from ONE process that drives every GPU of its host.  For N>=2 hosts
+(BASELINE configs; SURVEY.md section 2.4 "communication backend" row),
+every process must:
 
   1. call ``init_distributed()`` BEFORE any other jax API -- this
      connects the processes (coordinator + process_id) so
-     ``jax.devices()`` returns the GLOBAL device list and collectives
-     ride ICI within a host and DCN across hosts;
+     ``jax.devices()`` returns the GLOBAL device list;
   2. build sharded inputs as GLOBAL arrays (``host_to_global``): each
      process feeds its local shard, jax assembles the logical array.
+
+One process per host is the supported layout: a JAX process reserves
+most of the memory of every GPU of its host when it first touches
+them, so a second process on the same host finds no room.
 
 The CLI reads ZA_DIST="coordinator:port,num_processes,process_id"
 (or the standard JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
@@ -29,7 +33,8 @@ def init_distributed(coordinator: str | None = None,
                      process_id: int | None = None) -> bool:
     """Initialize jax.distributed from args, ZA_DIST, or the standard
     JAX_* env vars. Returns True when a multi-process runtime was
-    initialized, False for single-process (no-op).
+    initialized, False for single-process (no-op).  Run one process
+    per host: it drives every GPU of that host.
 
     ZA_DIST format: "coordinator_host:port,num_processes,process_id".
     """

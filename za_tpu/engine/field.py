@@ -1,15 +1,14 @@
-"""Batched modular big-integer arithmetic on TPU-friendly limb vectors.
+"""Batched modular big-integer arithmetic on 16-bit limb vectors.
 
 Representation: a field element is 16 little-endian limbs of 16 bits
-stored as uint32, shape ``(16, ...)`` (limb axis leading so the batch
-axis lands in the 128-wide lane dimension of the VPU). Products of two
-16-bit limbs are exact in uint32; partial-product columns accumulate at
-most 32 terms of 16 bits so column sums stay < 2^21 -- no overflow
-anywhere, no 64-bit arithmetic needed (TPU has no u64 multiply path).
+stored as uint32, shape ``(16, ...)`` (limb axis leading, the batch on
+the trailing axes). Products of two 16-bit limbs are exact in uint32;
+partial-product columns accumulate at most 32 terms of 16 bits so
+column sums stay < 2^21 -- no overflow anywhere, no 64-bit arithmetic.
 
 Montgomery arithmetic with R = 2^256: ``mont_mul(a, b) = a*b*R^-1``.
-The same code runs as plain jitted XLA (CPU or TPU) and inside Pallas
-kernel bodies; the host golden model is za_tpu.curve / Python ints.
+The same code runs as plain jitted XLA on the CPU and the GPU; the
+host golden model is za_tpu.curve / Python ints.
 
 Reference behavior being replaced: bn128 Fq/Fr arithmetic inside the
 pairing_ce/bellman_ce forks (SURVEY.md section 2.3).
@@ -98,7 +97,7 @@ def _shift_up(x):
 def _ks_resolve(e):
     """Resolve single-bit ripple carries on digits e <= 2^16 + eps via a
     Kogge-Stone parallel prefix over the limb axis (log2(L) fixed steps,
-    no sequential loop -- TPU While iterations are expensive).
+    no sequential loop).
 
     e: (L, ...) uint32 with e[k] + 1 < 2^17; returns canonical digits,
     dropping carry out of the top limb (callers guarantee it is zero)."""
@@ -138,8 +137,7 @@ def sub_borrow(a, b):
     b = jnp.broadcast_to(b, shape)
     L = a.shape[0]
     e = a + (b ^ MASK)
-    # +1 at limb 0 via an iota mask (a scatter-add would not lower
-    # inside Pallas TPU kernel bodies)
+    # +1 at limb 0 via an iota mask (no scatter-add)
     limb0 = jax.lax.broadcasted_iota(jnp.uint32, e.shape, 0) == 0
     e = e + jnp.where(limb0, jnp.uint32(1), jnp.uint32(0))
     # limb sums <= 2^17 - 1: one local split pass, keeping the top carry
@@ -178,45 +176,6 @@ def geq(a, b):
 # -- modular add/sub/neg ------------------------------------------------------
 
 
-_KERNEL_CONST_MODE = False
-
-
-class kernel_const_mode:
-    """Context manager: while tracing a Pallas TPU kernel body, build
-    limb constants from scalar immediates via broadcasted_iota selects.
-    pallas_call rejects captured array constants, and a traced 1D->ND
-    reshape of a passed-in row is an unsupported Mosaic shape cast --
-    an iota/where chain of 16 scalar immediates sidesteps both."""
-
-    def __enter__(self):
-        global _KERNEL_CONST_MODE
-        self._prev = _KERNEL_CONST_MODE
-        _KERNEL_CONST_MODE = True
-
-    def __exit__(self, *exc):
-        global _KERNEL_CONST_MODE
-        _KERNEL_CONST_MODE = self._prev
-
-
-def const_limbs(np_limbs, shape):
-    """(16,) numpy limb constant -> array of `shape` (limb axis leading,
-    value broadcast over the rest), Pallas-kernel-safe when needed."""
-    np_limbs = np.asarray(np_limbs)
-    if not _KERNEL_CONST_MODE:
-        return jnp.asarray(
-            np.broadcast_to(
-                np_limbs.reshape((NLIMBS,) + (1,) * (len(shape) - 1)), shape
-            )
-        )
-    idx = jax.lax.broadcasted_iota(jnp.uint32, shape, 0)
-    out = jnp.zeros(shape, jnp.uint32)
-    for i, v in enumerate(np_limbs):
-        v = int(v)
-        if v:
-            out = jnp.where(idx == i, jnp.uint32(v), out)
-    return out
-
-
 def _bshape(modl, x):
     """Broadcast a constant vector against x along the LEADING axes:
     (16,) limbs, (35,) RNS channels, or (35, 2) flat-Fq2 constants."""
@@ -224,8 +183,6 @@ def _bshape(modl, x):
     extra = x.ndim - m.ndim
     shape = m.shape + (1,) * extra
     if isinstance(modl, np.ndarray):
-        if _KERNEL_CONST_MODE:
-            return const_limbs(modl, shape)
         return jnp.asarray(modl.reshape(shape))
     return jnp.asarray(modl).reshape(shape)
 
@@ -261,7 +218,7 @@ def mul_wide(a, b):
     a, b: (16, ...) canonical 16-bit digits. Vectorized over the limb
     axis: ONE broadcast outer product (16, 16, ...) followed by 16
     pad-shifted row folds -- ~60 HLO ops per product instead of the
-    ~770 a per-column Python loop emits (XLA:TPU compile time and
+    ~770 a per-column Python loop emits (XLA compile time and
     per-op dispatch both scale with op count, and a full prover graph
     inlines dozens of these). Column sums gather at most 32 16-bit
     terms -> < 2^21, no overflow in uint32."""

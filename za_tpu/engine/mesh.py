@@ -1,19 +1,21 @@
-"""Multi-chip sharding: MSM and NTT over a jax.sharding.Mesh.
+"""Multi-device sharding: MSM and NTT over a jax.sharding.Mesh.
 
 The communication design (SURVEY.md section 2.4):
 
-  * MSM: bases/scalars split per chip along the point-stream axis; each
-    chip runs local Pippenger bucket accumulation + lane reduction; the
-    per-window bucket arrays are combined across chips (all_gather over
-    ICI + local point-add reduce -- the point-group analogue of psum),
-    then weighted and Horner-combined identically on every chip.
+  * MSM: bases/scalars split per device along the point-stream axis;
+    each device runs local Pippenger bucket accumulation + lane
+    reduction; the per-window bucket arrays are combined across
+    devices (all_gather + local point-add reduce -- the point-group
+    analogue of psum), then weighted and Horner-combined identically
+    on every device.
   * NTT: four-step decomposition n = n1*n2 with n1 = D devices: an
     all_to_all redistributes between the decimated and contiguous
-    layouts; inner/outer NTTs are chip-local; the inter-factor twiddle
-    multiply is elementwise.
+    layouts; inner/outer NTTs are device-local; the inter-factor
+    twiddle multiply is elementwise.
 
-Everything is shard_map over a 1-D mesh axis "d"; collectives ride ICI
-on real pods and the virtual CPU mesh in tests.
+Everything is shard_map over a 1-D mesh axis "d"; the collectives run
+over NVLink between the GPUs of one host and over the virtual CPU mesh
+in tests.
 """
 
 from __future__ import annotations
@@ -23,11 +25,8 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
 
 from ..curve import R
 from . import ec, field as F, msm as MSM, ntt as NTT
@@ -39,10 +38,9 @@ AXIS = "d"
 def _pvary(tree):
     """Mark a freshly-built constant pytree as device-varying so scan
     carries type-check inside shard_map."""
-    try:
-        return jax.tree_util.tree_map(lambda x: jax.lax.pvary(x, AXIS), tree)
-    except AttributeError:  # older jax: vma tracking absent
-        return tree
+    return jax.tree_util.tree_map(
+        lambda x: jax.lax.pcast(x, AXIS, to="varying"), tree
+    )
 
 
 def make_mesh(n_devices: int | None = None) -> Mesh:
@@ -168,12 +166,12 @@ def sharded_msm_fn(mesh: Mesh, ops, c: int, lanes: int, is_g2: bool,
     return run
 
 
-# -- sharded signed-dense MSM (the production multi-chip MSM) -----------------
-# Point stream and scalars split per chip along n; each chip computes
-# its chunk's per-lane window sums and lane-folds them locally; the
-# per-window partial sums (leaves (rows, W, M)) are combined across
-# chips with an all_gather + point-add reduce over ICI (the point-group
-# psum); the Horner window combine then runs identically everywhere.
+# -- sharded signed-dense MSM -------------------------------------------------
+# Point stream and scalars split per device along n; each device
+# computes its chunk's per-lane window sums and lane-folds them locally;
+# the per-window partial sums (leaves (rows, W, M)) are combined across
+# devices with an all_gather + point-add reduce (the point-group psum);
+# the Horner window combine then runs identically everywhere.
 
 
 def signed_msm_sharded(points, scalars, ops, c: int, L: int):
@@ -225,15 +223,13 @@ def sharded_signed_msm_fn(mesh: Mesh, ops, c: int = 4, lanes: int = 8,
     return run
 
 
-# -- sharded batch-affine tree MSM (multi-chip production path) ---------------
+# -- sharded batch-affine tree MSM --------------------------------------------
 # The staged AffineTables' chunk axis C is sharded across the mesh
-# (C % D == 0, staging pads the chunk count); each chip runs the SAME
-# per-chunk kernels as single-chip (Pallas-fused tree levels on TPU,
-# the XLA tree elsewhere) over its local chunks, producing per-window
-# projective sums (leaves (35[,2], W, M)); an all_gather + point-add
-# reduce over ICI combines windows across chips; Horner runs
-# replicated.  This keeps multi-chip on the FAST kernels -- the XLA
-# sharded_signed_msm_fn path measures ~4x slower per chip.
+# (C % D == 0, staging pads the chunk count); each device runs the SAME
+# per-chunk tree as single-device over its local chunks, producing
+# per-window projective sums (leaves (35[,2], W, M)); an all_gather +
+# point-add reduce combines windows across devices; Horner runs
+# replicated.
 
 
 def _gather_reduce_horner(wsum, ops, is_g2: bool, window_bits: int = 4):
@@ -253,24 +249,16 @@ def _gather_reduce_horner(wsum, ops, is_g2: bool, window_bits: int = 4):
     return jax.tree_util.tree_map(lambda x: x[None], result)
 
 
-def sharded_tree_msm_fn(mesh: Mesh, ops, is_g2: bool, fused: bool):
+def sharded_tree_msm_fn(mesh: Mesh, ops, is_g2: bool):
     """Jitted sharded batch-affine tree MSM over staged AffineTables.
 
     tx/ty: (C, HALF, 35[, 2], M, S) u16 sharded on C; ident (C, M, S)
     bool sharded on C; scalars (16, M, C*S) u32 sharded on the point
     axis (chunk-major layout makes the two shardings line up).
-    C/D local chunks per chip; same kernels as single-chip."""
+    C/D local chunks per device; same tree as single-device."""
     from . import msm_tree as MT
 
-    if fused:
-        from . import pallas_tree as PT
-
-        ws_fn = (
-            PT.tree_window_sums_fused_g2 if is_g2
-            else PT.tree_window_sums_fused
-        )
-    else:
-        ws_fn = partial(MT.tree_window_sums, pvary_axis=AXIS)
+    ws_fn = partial(MT.tree_window_sums, pvary_axis=AXIS)
 
     def body(tx, ty, ident, scalars):
         tabs = MT.AffineTables(tx=tx, ty=ty, ident=ident, n=0,
@@ -299,45 +287,9 @@ def sharded_tree_msm_fn(mesh: Mesh, ops, is_g2: bool, fused: bool):
     return run
 
 
-def sharded_dense_pallas_msm_fn(mesh: Mesh, ops, is_g2: bool,
-                                lanes: int = 128):
-    """Jitted sharded fused-dense MSM: each chip runs the Pallas
-    signed-dense accumulation on its point-stream shard, windows are
-    combined with all_gather + point-add reduce over ICI.  points
-    leaves (35, M, n) / (35, 2, M, n) and scalars (16, M, n) sharded
-    on n; n/D must be a multiple of lanes."""
-    from . import pallas_msm_rns as PMR
-
-    def body(points, scalars):
-        wsum = PMR.dense_window_sums_pallas(points, scalars, ops,
-                                            lanes=lanes)
-        return _gather_reduce_horner(wsum, ops, is_g2)
-
-    if is_g2:
-        pt_spec = (P(None, None, None, AXIS),) * 3
-        out_spec = (P(AXIS, None, None, None),) * 3
-    else:
-        pt_spec = (P(None, None, AXIS),) * 3
-        out_spec = (P(AXIS, None, None),) * 3
-
-    fn = shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(pt_spec, P(None, None, AXIS)),
-        out_specs=out_spec,
-    )
-
-    @jax.jit
-    def run(points, scalars):
-        out = fn(points, scalars)
-        return jax.tree_util.tree_map(lambda x: x[0], out)
-
-    return run
-
-
 # -- sharded R1CS matvec --------------------------------------------------------
 # A/B/C sparse rows partitioned by constraint row (SURVEY.md section
-# 2.4 row 3): each chip owns a contiguous row block [d*m/D, (d+1)*m/D)
+# 2.4 row 3): each device owns a contiguous row block [d*m/D, (d+1)*m/D)
 # and that block's nnz entries (host-padded to equal length); the
 # witness vector is replicated; per-shard segment_sum matvec; outputs
 # concatenate along the domain axis (already the NTT's shard layout).
@@ -490,7 +442,7 @@ def _fourstep_local(x_loc, tw_loc, wd_row, sub_table, dd: "ShardedDomain",
     returns the contiguous shard of the transform (natural order).
     """
     D, n2 = dd.D, dd.n2
-    # step A: contiguous -> decimated-by-D rows (all_to_all over ICI).
+    # step A: contiguous -> decimated-by-D rows (all_to_all).
     # Element t of the local shard is global g = d*n2 + t and belongs to
     # row r = t mod D at column d*(n2/D) + t//D; swapping (q, r) makes
     # each destination's piece contiguous for the same-axis all_to_all.
@@ -631,7 +583,7 @@ def _fourstep_local_rns(x_loc, tw_loc, wd_row, sub_table,
 
     ctx = RNS.RR
     D, n2 = dd.D, dd.n2
-    # step A: contiguous -> decimated-by-D rows over ICI
+    # step A: contiguous -> decimated-by-D rows (all_to_all)
     x2 = jnp.swapaxes(x_loc.reshape(RNS.N_CH, n2 // D, D), 1, 2)
     row = jax.lax.all_to_all(x2, AXIS, split_axis=1, concat_axis=1)
     row = row.reshape(RNS.N_CH, n2)

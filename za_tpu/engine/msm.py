@@ -1,4 +1,4 @@
-"""Pippenger multi-scalar multiplication on TPU.
+"""Pippenger multi-scalar multiplication on device.
 
 Scatter-conflict-free formulation: the point stream is split across K
 lanes; each lane serially accumulates its points into its OWN bucket
@@ -12,8 +12,8 @@ Pippenger, fully vectorized, no data-dependent control flow (digit-0
 points land in bucket 0 which carries weight 0).
 
 Replaces bellman's CPU multiexp worker pool (SURVEY.md section 2.3);
-the sharded variant splits the point stream per chip and psum-reduces
-bucket sums over ICI (za_tpu.engine.mesh).
+the sharded variant splits the point stream per device and reduces
+bucket sums across the mesh (za_tpu.engine.mesh).
 """
 
 from __future__ import annotations
@@ -90,7 +90,7 @@ def _weighted_bucket_sum(buckets, ops: FieldOps, B: int,
     style='scan': the classic running/total sequential scan -- tiny
     compiled graph, O(B) loop iterations (CPU tests).
     style='tree'/'hybrid': suffix sums via associative scan + tree
-    reduction -- log(B) wide passes, no sequential loop (TPU runtime)."""
+    reduction -- log(B) wide passes, no sequential loop."""
     if style in ("tree", "hybrid"):
         tail = jax.tree_util.tree_map(lambda x: x[..., 1:], buckets)
 
@@ -182,7 +182,7 @@ def msm_limbs(px_py_pz, scalars, ops: FieldOps, c: int | None = None,
     px_py_pz: point pytree (X, Y, Z), each leaf (16, n)
     scalars:  (16, n) uint32 (16-bit digits, plain form)
     layout='packed' stores buckets point-major so the per-step
-    gather/scatter moves contiguous rows (TPU); 'limb' keeps limb-major
+    gather/scatter moves contiguous rows; 'limb' keeps limb-major
     arrays (smallest graphs, CPU tests).
     returns a single projective point pytree with trailing batch dim 1.
     """
@@ -586,14 +586,12 @@ def msm_limbs_grouped(points, scalars, ops: FieldOps, c: int,
 
 
 # -- dense (scatter-free) MSM -------------------------------------------------
-# TPU scatter rewrites the whole operand every step (~35 GB/s measured)
-# and gathers cost ~50 ns per tile-padded row, so ANY bucket/sort-based
-# Pippenger is data-movement-bound on TPU. The dense formulation does
-# zero data-dependent movement: radix-4 digits select per point among
-# {O, P, 2P, 3P} (elementwise where -- VPU-dense), each window's
-# selection tree-reduces, and windows fold Horner-style inside one
-# scan. Work = ceil(254/2) * n point adds, all at dense-VPU throughput;
-# the 2P/3P tables are two batched adds computed in-program.
+# The dense formulation does zero data-dependent movement (no gathers
+# or scatters): radix-4 digits select per point among {O, P, 2P, 3P}
+# (elementwise where), each window's selection tree-reduces, and
+# windows fold Horner-style inside one scan. Work = ceil(254/2) * n
+# point adds, all dense elementwise; the 2P/3P tables are two batched
+# adds computed in-program.
 
 
 def msm_limbs_dense(points, scalars, ops: FieldOps, lanes: int = 128):
@@ -713,12 +711,9 @@ def horner_windows(wsum, ops: FieldOps, is_g2: bool, window_bits: int,
         jax.tree_util.tree_map(lambda x: x[0], per_w)[0], ops, is_g2
     )
     if pvary_axis is not None:
-        try:
-            ident_m = jax.tree_util.tree_map(
-                lambda x: jax.lax.pvary(x, pvary_axis), ident_m
-            )
-        except AttributeError:
-            pass
+        ident_m = jax.tree_util.tree_map(
+            lambda x: jax.lax.pcast(x, pvary_axis, to="varying"), ident_m
+        )
     result, _ = jax.lax.scan(horner, ident_m, per_w)
     return result
 
@@ -733,33 +728,12 @@ def _fold_and_horner(acc, ops: FieldOps, is_g2: bool, L: int,
     return horner_windows(wsum, ops, is_g2, window_bits)
 
 
-def msm_limbs_dense_fused(points, scalars, ops: FieldOps,
-                          lanes: int = 128, w_tile: int = 8,
-                          interpret: bool = False):
-    """msm_limbs_dense with the chunk accumulation loop fused into a
-    Pallas TPU kernel (VMEM-resident accumulator; see pallas_msm)."""
-    from . import pallas_msm
-
-    first_leaf = jax.tree_util.tree_leaves(points)[0]
-    is_g2 = isinstance(points[0], tuple)
-    n = first_leaf.shape[2]
-    L = 1
-    while L * 2 <= min(lanes, n):
-        L *= 2
-    acc = pallas_msm.dense_msm_window_sums(
-        points, scalars, ops, is_g2, w_tile=w_tile, lanes=L,
-        interpret=interpret,
-    )
-    return _fold_and_horner(acc, ops, is_g2, L)
-
-
 # -- signed-digit dense MSM ---------------------------------------------------
 # The radix-4 dense MSM does ceil(254/2) = 127 point adds per point.
 # Signed base-2^c digits halve the table span (digits in [-2^(c-1),
 # 2^(c-1)], negation is a Y-flip): at c=4 the work drops to 64 adds +
 # 7 table-build adds per point (~1.8x). Representation-agnostic over
-# FieldOps -- used with the RNS ops (engine/rns.py) on TPU and the
-# limb ops in tests.
+# FieldOps -- used with the RNS ops (engine/rns.py) and the limb ops.
 
 
 def signed_digits(scalars, c: int):
@@ -849,12 +823,9 @@ def signed_window_sums(points, scalars, ops: FieldOps, c: int, L: int,
         ops, is_g2,
     )
     if pvary_axis is not None:
-        try:
-            ident_wml = jax.tree_util.tree_map(
-                lambda x: jax.lax.pvary(x, pvary_axis), ident_wml
-            )
-        except AttributeError:  # older jax: vma tracking absent
-            pass
+        ident_wml = jax.tree_util.tree_map(
+            lambda x: jax.lax.pcast(x, pvary_axis, to="varying"), ident_wml
+        )
 
     def step_body(step, acc):
         dw = jax.lax.dynamic_index_in_dim(
@@ -925,7 +896,7 @@ def msm_signed_dense(points, scalars, ops: FieldOps, c: int = 4,
 
 # -- packed bucket storage ----------------------------------------------------
 # The bucket accumulation gathers/scatters K arbitrary rows per step.
-# Limb-major arrays make that a per-ELEMENT lane gather (slow on TPU);
+# Limb-major arrays make that a per-ELEMENT gather;
 # packing each point's 3*16 (G1) or 6*16 (G2) limbs into one contiguous
 # row turns it into K contiguous-row copies plus a cheap transpose.
 

@@ -1,10 +1,10 @@
 """Batch-affine tree MSM over the RNS field core.
 
-The fused Pallas signed-dense MSM (pallas_msm_rns) runs complete
-projective RCB adds: 14 Montgomery muls per accumulate plus 7/71 of
-the work building {P..8P} tables in-kernel.  This module removes both
-costs with the classic batch-affine trick, reformulated as a tree so
-it is XLA/TPU-friendly (no scatters, no per-bucket serial chains):
+The signed-dense MSM (msm.msm_signed_dense) runs complete projective
+RCB adds: 14 Montgomery muls per accumulate plus 7/71 of the work
+building {P..8P} tables per call.  This module removes both costs with
+the classic batch-affine trick, reformulated as a tree so it stays
+dense XLA (no scatters, no per-bucket serial chains):
 
   * the {1P..8P} multiple tables are built ONCE at pk-staging time,
     batch-normalized to AFFINE, and stored as u16 residue planes
@@ -46,7 +46,7 @@ proof themselves if they need that fail-stop.
 
 CONTRACT: input points must be pairwise distinct (pk query points
 are).  Synthetic inputs that repeat a point pool whose period divides
-a pairing stride (adjacent here, fold-half in pallas_tree) WILL hit
+the pairing stride (adjacent lanes) WILL hit
 the equal-x case -- benchmarks use prime pool sizes for this reason.
 
 Bound discipline (represented-integer bounds, units of N; mont_mul
@@ -209,9 +209,8 @@ def _pow_fermat(x, exp: int, mul, block: int = 8):
     The digit loop is a lax.fori_loop over BLOCKS of `block` digits,
     each block unrolled in the body: fully unrolled chains made XLA
     compiles take minutes (~10k-op graphs), while a fully rolled loop
-    is latency-bound on the TPU backend (~60 dispatch-priced steps,
-    measured ~9 ms per inversion).  Blocked, the graph stays ~1k ops
-    and the loop runs ~8 steps."""
+    pays ~60 sequential steps per inversion.  Blocked, the graph stays
+    ~1k ops and the loop runs ~8 steps."""
     digits = []
     e = exp
     while e:
@@ -262,13 +261,10 @@ def _pow_fermat(x, exp: int, mul, block: int = 8):
 
 def _maybe_pvary(x, axis: str | None):
     """Mark a constant as device-varying inside shard_map (scan carry
-    type-checking); no-op outside (axis None) or on older jax."""
+    type-checking); no-op outside (axis None)."""
     if axis is None:
         return x
-    try:
-        return jax.lax.pvary(x, axis)
-    except AttributeError:  # older jax: vma tracking absent
-        return x
+    return jax.lax.pcast(x, axis, to="varying")
 
 
 def batch_inv(d, fld, group: int = 64, tail: int = 1024,

@@ -48,7 +48,10 @@ FOURSTEP_MIN = 1 << 12
 class DeviceDomain:
     """Twiddle/scaling tables for a 2^k domain, uploaded once."""
 
-    def __init__(self, size: int):
+    def __init__(self, size: int, fourstep: bool = False):
+        """fourstep: the backend profile's NTT layout choice (XLA:CPU
+        compiles the four-step stage ops slowly, so tests and host-mesh
+        runs keep the 2D unrolled form)."""
         self.size = size
         self.host = Domain(size)
         h = self.host
@@ -56,12 +59,7 @@ class DeviceDomain:
         self.rev = jnp.asarray(_bitrev_indices(size))
         self.w_fwd = jnp.asarray(_pow_table(h.omega, half))
         self.w_inv = jnp.asarray(_pow_table(h.omega_inv, half))
-        # the four-step layout pays off on TPU (lane-friendly stages);
-        # XLA:CPU compiles its 4D stage ops pathologically slowly, so
-        # tests and host-mesh runs keep the 2D unrolled form
-        use_fourstep = (
-            size >= FOURSTEP_MIN and jax.default_backend() == "tpu"
-        )
+        use_fourstep = fourstep and size >= FOURSTEP_MIN
         self.fourstep = (
             FourStepTables(size, h.omega, h.size_inv) if use_fourstep else None
         )
@@ -107,7 +105,7 @@ def _ntt_core_unrolled(x, table, n: int):
 def _ntt_core_fori(x, table, n: int):
     """Radix-2 NTT with ONE compiled stage body (fori over stages,
     stage-dependent butterfly indices computed from iota with dynamic
-    shifts) -- keeps XLA:TPU compile time independent of log2(n)."""
+    shifts) -- keeps XLA compile time independent of log2(n)."""
     k = n.bit_length() - 1
     x = x[:, np.asarray(_bitrev_indices(n))]
     kk = jnp.arange(n // 2, dtype=jnp.int32)
@@ -136,8 +134,8 @@ def _ntt_core_fori(x, table, n: int):
 def _ntt_core(x, table, n: int):
     """x: (16, n) Montgomery values; table: (16, n/2) master twiddles.
 
-    The unrolled form is all reshape/slice/concat (no mid-stage gathers,
-    which serialize badly on TPU); the fori variant trades runtime for a
+    The unrolled form is all reshape/slice/concat (no mid-stage
+    gathers); the fori variant trades runtime for a
     log(n)-independent compile and remains available for experiments."""
     return _ntt_core_unrolled(x, table, n)
 
@@ -173,7 +171,7 @@ def coset_intt(dom: DeviceDomain, evals):
 
 # -- piecewise (compile-shared) NTT drivers -----------------------------------
 # One giant jitted prover graph inlines every NTT stage of every call:
-# XLA:TPU compile time scales superlinearly with HLO op count (~7 NTTs
+# XLA compile time scales superlinearly with HLO op count (~7 NTTs
 # x log2(n) stages x ~300-op Montgomery muls blew past 3 minutes at
 # n=2^14). These drivers jit the NTT CORE once per size with the
 # twiddle tables as *arguments*, so forward/inverse/coset calls -- and
@@ -251,7 +249,7 @@ def coset_intt_steps(dom: DeviceDomain, evals):
     return _scale()(x, dom.coset_inv_pow)
 
 
-# -- local four-step NTT (TPU layout) -----------------------------------------
+# -- local four-step NTT ------------------------------------------------------
 # Butterflies along the lane axis relayout data every stage; splitting
 # n = n1*n2 runs batched sub-NTTs along a NON-lane axis (lanes stay
 # full and stages are static slices), with one transpose and an

@@ -1,9 +1,9 @@
 """Radix-2 NTT over Fr in the RNS representation.
 
-The limb NTT's butterflies pay ~8k VPU ops per Montgomery twiddle
-multiply; in RNS (za_tpu.engine.rns) the same multiply is ~1.9k ops
-with the CRT extensions on the MXU, so the h(x) pipeline -- dominated
-by 7 NTTs at domain size -- drops proportionally.
+The limb NTT's butterflies pay ~8k elementwise u32 ops per Montgomery
+twiddle multiply; in RNS (za_tpu.engine.rns) the same multiply is ~1.9k
+ops with the CRT extensions as int8 dots, so the h(x) pipeline --
+dominated by 7 NTTs at domain size -- drops proportionally.
 
 Integer-bound bookkeeping (rns.py discipline): butterfly outputs
   u' = u + w*v        (bound B + 4N)
@@ -49,40 +49,52 @@ def _pow_list(base: int, count: int) -> list[int]:
     return out
 
 
+def _doubling(x, p, width: int, count: int):
+    """Extend x (35, ..., width) by geometric doubling along the last
+    axis: x[..., j + w] = x[..., j] * p^w (p broadcast on that axis),
+    until count entries; u16 out."""
+    x = x.astype(jnp.uint32)
+    p = p.astype(jnp.uint32)
+    while width < count:
+        step = RNS.mont_mul_rns(x, jnp.broadcast_to(p, x.shape), RR)
+        x = jnp.concatenate([x, step], axis=-1)
+        p = RNS.mont_mul_rns(p, p, RR)
+        width *= 2
+    return x[..., :count].astype(jnp.uint16)
+
+
+#: the doubling runs as one program per table size instead of a stream
+#: of op-by-op dispatches, each compiled for its own width
+_doubling_jit = jax.jit(_doubling, static_argnums=(2, 3))
+
+
 def geom_table(base: int, count: int, scale: int = 1):
     """(35, count) u16 Montgomery RNS table of [scale * base^i]:
     built on DEVICE by axis doubling (log2(count) full-width mont
     muls).  The host _pow_list at 2^21 costs ~2M big-int multiplies
     (tens of seconds of domain construction); this is milliseconds."""
-    x = jnp.asarray(_mont_table([scale % R])).astype(jnp.uint32)
-    p = jnp.asarray(_mont_table([base % R])).astype(jnp.uint32)
-    width = 1
-    while width < count:
-        step = RNS.mont_mul_rns(
-            x, jnp.broadcast_to(p, x.shape), RR
-        )
-        x = jnp.concatenate([x, step], axis=1)
-        p = RNS.mont_mul_rns(p, p, RR)
-        width *= 2
-    return x[:, :count].astype(jnp.uint16)
+    return _doubling_jit(
+        _mont_table([scale % R]), _mont_table([base % R]), 1, count
+    )
 
 
-#: domains at least this large use the four-step layout on TPU (the 2D
-#: unrolled butterflies waste lanes in the early stages; the four-step
-#: split keeps the lane axis full -- see ntt.py FourStepTables)
+#: domains at least this large use the four-step layout where the
+#: backend profile asks for it (see ntt.py FourStepTables)
 FOURSTEP_MIN = 1 << 12
 
 
 class RnsDomain:
-    """Twiddle/scaling tables for a 2^k domain in Montgomery RNS."""
+    """Twiddle/scaling tables for a 2^k domain in Montgomery RNS.
 
-    def __init__(self, size: int):
+    fourstep: the backend profile's NTT layout choice."""
+
+    def __init__(self, size: int, fourstep: bool = False):
         self.size = size
         self.host = Domain(size)
         h = self.host
         self.fourstep = (
             RnsFourStep(size, h.omega, h.size_inv)
-            if size >= FOURSTEP_MIN and jax.default_backend() == "tpu"
+            if fourstep and size >= FOURSTEP_MIN
             else None
         )
         if self.fourstep is None:
@@ -138,19 +150,9 @@ class RnsFourStep:
         host big-int work."""
         n1, n2 = self.n1, self.n2
         wk = _pow_list(w, n2)  # w^k2, host (n2 muls)
-        p = jnp.asarray(_mont_table(wk)).astype(jnp.uint32)  # (35, n2)
-        x = jnp.asarray(
-            _mont_table([scale % R] * n2)
-        ).astype(jnp.uint32)[:, :, None]                     # (35, n2, 1)
-        width = 1
-        while width < n1:
-            step = RNS.mont_mul_rns(
-                x, jnp.broadcast_to(p[:, :, None], x.shape), RR
-            )
-            x = jnp.concatenate([x, step], axis=2)
-            p = RNS.mont_mul_rns(p, p, RR)
-            width *= 2
-        return x[:, :, :n1].astype(jnp.uint16)
+        p = _mont_table(wk)[:, :, None]                      # (35, n2, 1)
+        x = _mont_table([scale % R] * n2)[:, :, None]        # (35, n2, 1)
+        return _doubling_jit(x, p, 1, n1)
 
 
 def _ntt_core(x, table, n: int):
@@ -221,17 +223,13 @@ def coset_intt(dom: RnsDomain, evals):
 # -- four-step core (lane-friendly stage layout) ------------------------------
 
 
-def _sub_ntt_axis1(x, table, S: int, start_length: int = 2,
-                   skip_bitrev: bool = False):
+def _sub_ntt_axis1(x, table, S: int):
     """Radix-2 NTT along axis 1 of (35, S, lanes); table (35, S/2).
     Bounds: butterfly outputs grow <= 8N per stage from a < 4N start
-    (each twiddle multiply resets its own output to < 4N).
-    start_length/skip_bitrev let the fused Pallas prefix
-    (pallas_ntt.sub_ntt_fused) hand over mid-transform."""
+    (each twiddle multiply resets its own output to < 4N)."""
     lanes = x.shape[2]
-    if not skip_bitrev:
-        x = x[:, np.asarray(_bitrev_indices(S)), :]
-    length = start_length
+    x = x[:, np.asarray(_bitrev_indices(S)), :]
+    length = 2
     while length <= S:
         half = length // 2
         stride = S // length
@@ -252,30 +250,13 @@ def _sub_ntt_axis1(x, table, S: int, start_length: int = 2,
     return x
 
 
-import os as _os
-
-#: ZA_NTT_FUSED=1 routes the four-step sub-NTTs through the fused
-#: Pallas prefix (pallas_ntt.sub_ntt_fused); read once at import (the
-#: per-size jit cache would otherwise pin a stale choice).
-_FUSED = _os.environ.get("ZA_NTT_FUSED", "0") != "0"
-
-
-def _sub_ntt(x, table, S: int):
-    if _FUSED:
-        from .pallas_ntt import sub_ntt_fused
-
-        return sub_ntt_fused(x, table, S,
-                             interpret=jax.default_backend() != "tpu")
-    return _sub_ntt_axis1(x, table, S)
-
-
 def _fourstep_core(x, t2, t1, inter, n1: int, n2: int):
     """(35, n) natural order -> (35, n) natural order."""
     xr = x.reshape(RNS.N_CH, n2, n1)      # element (j2, j1) = x[j1 + n1*j2]
-    a = _sub_ntt(xr, t2, n2)              # inner NTT over j2
+    a = _sub_ntt_axis1(xr, t2, n2)        # inner NTT over j2
     a = RNS.mont_mul_rns(a, inter, RR)    # omega^(j1*k2) (+ 1/n inverse)
     a = jnp.swapaxes(a, 1, 2)             # (35, n1, n2): axis1 = j1
-    b = _sub_ntt(a, t1, n1)               # outer NTT over j1
+    b = _sub_ntt_axis1(a, t1, n1)         # outer NTT over j1
     return b.reshape(RNS.N_CH, n1 * n2)   # [k1, k2] -> natural order
 
 

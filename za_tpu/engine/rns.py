@@ -1,10 +1,9 @@
-"""Residue-number-system (RNS) field arithmetic: the MXU-era core.
+"""Residue-number-system (RNS) field arithmetic: the prover's field core.
 
-The limb engine (za_tpu.engine.field) is VPU-bound: a 16x16-limb
-Montgomery product costs ~8k elementwise u32 ops and the measured VPU
-ceiling (~0.2-1 Tops/s) caps the prover far below the chip's compute
-(the int8 MXU measures 60x higher). RNS moves the quadratic part of
-modular multiplication onto the MXU:
+A 16x16-limb Montgomery product (za_tpu.engine.field) costs ~8k
+elementwise u32 ops. RNS replaces the quadratic part of modular
+multiplication with two small constant-matrix products over int8
+digits:
 
   * a field element is its residues modulo 35 pseudo-Mersenne 16-bit
     primes (channels): base B1 (17), base B2 (17), one redundant
@@ -15,8 +14,8 @@ modular multiplication onto the MXU:
     r = (t + q*N)/M1 in B2+r; base-extend r back to B1. Values carry a
     global Montgomery factor M1 (x~ = X*M1 mod N).
   * each base extension is a CRT matrix product with CONSTANT 16-bit
-    matrices -- executed as TWO int8 MXU matmuls via an exact signed
-    base-256 splitting (data d = d_lo + 256*d_hi + 32896 with int8
+    matrices -- executed as TWO dots of int8 digits (exact float32
+    dots, see _dot_i8) via an exact signed base-256 splitting (data d = d_lo + 256*d_hi + 32896 with int8
     digits; constants pre-split, the 32896 shift folded into a
     per-target additive constant).
   * extension 1 (q) uses Kawamura's approximate alpha from a shaved
@@ -35,7 +34,7 @@ The complete RCB point formulas (za_tpu.engine.ec) keep every
 intermediate within these contracts -- see rns_bounds in tests.
 
 Replaces bn128 Fq/Fr multiplication inside the pairing_ce/bellman_ce
-forks (SURVEY.md section 2.3) on the TPU compute path.
+forks (SURVEY.md section 2.3) on the device compute path.
 """
 
 from __future__ import annotations
@@ -287,9 +286,8 @@ RR = RnsContext(_R)
 
 # -- jax channel primitives ----------------------------------------------------
 # All functions take (35, ...) uint32 arrays (channel axis leading, the
-# batch in the lane dimension) and per-channel constant vectors that
-# broadcast along the trailing axes. Pure jnp: runs under jit, eager,
-# and inside Pallas kernel bodies.
+# batch on the trailing axes) and per-channel constant vectors that
+# broadcast along the trailing axes. Pure jnp: runs under jit or eager.
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -339,12 +337,19 @@ def ch_sub_off(a, b, ctx: RnsContext, sl=slice(None), off_vec=None):
 
 
 def _dot_i8(w, d):
-    """Constant int8 matrix (nt, 2*ns) @ int8 data (2*ns, batch) with
-    int32 accumulation -- the MXU path."""
-    return jax.lax.dot_general(
-        w, d, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
+    """Constant int8 matrix (nt, 2*ns) @ int8 data (2*ns, batch) -> the
+    exact int32 products.
+
+    The dot runs in float32 at HIGHEST precision, where it is exact:
+    every product is below 2^14 and every sum below 2^20.  XLA:GPU's
+    int8 x int8 -> int32 dot returned wrong sums for small batches."""
+    out = jax.lax.dot_general(
+        jnp.asarray(w, jnp.float32), d.astype(jnp.float32),
+        (((1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32,
     )
+    return out.astype(jnp.int32)
 
 
 def _pack_i8(lam):

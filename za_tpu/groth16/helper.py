@@ -267,7 +267,7 @@ def generate_verified_proof_z(
         engine is not None
         and hasattr(engine, "r1cs_satisfied")
         and hasattr(engine, "witness_limbs_dev")
-        # tiny circuits take prove()'s exact-host path, which consumes
+        # tiny circuits take prove()'s unstaged path, which consumes
         # int lists (mirrors the staged-branch gate in prove.py)
         and max(r1cs.num_vars, params.domain_size - 1) >= 512
     )

@@ -1,6 +1,6 @@
 """Native runtime pieces (C, loaded via ctypes).
 
-The reference's heavy host-side loops are native Rust; za-tpu's
+The reference's heavy host-side loops are native Rust; this repo's
 equivalents live here as small C translation units compiled on demand
 with the system compiler and loaded through ctypes (no pybind11 in the
 image; ctypes keeps the build dependency-free).  Every user degrades
@@ -27,11 +27,11 @@ _LIBS: dict = {}
 
 
 def _cache_dir() -> str:
+    """ZA_NATIVE_CACHE, else ``.native_cache`` at the checkout root."""
     d = os.environ.get(
         "ZA_NATIVE_CACHE",
-        os.path.join(
-            os.path.expanduser("~"), ".cache", "za_tpu_native"
-        ),
+        os.path.join(os.path.dirname(os.path.dirname(_DIR)),
+                     ".native_cache"),
     )
     os.makedirs(d, exist_ok=True)
     return d
